@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 from test_ate_parity import build_scene, jax_track_ate, run_cpp  # noqa: E402
 
-from psgradientsdf_tpu.tracking import configs  # noqa: E402
+from psgradientsdf.tracking import configs  # noqa: E402
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
 """Shared synthetic bench scene (wavy heightfield) — used by bench.py and
-the fusion/emitter probes so every measurement sees identical inputs."""
+the scaling checks so every measurement sees identical inputs."""
 
 from __future__ import annotations
 

@@ -145,7 +145,7 @@ int main(int argc, char **argv) {
     const V3 shift = v3(0.f, 0.f, 1.2f);
     const V3 origin = sub(shift, mul(v3(1, 1, 1), 0.5f * h * DIM));
 
-    // synthetic wavy depth + inward normals (same scene as the TPU bench);
+    // synthetic wavy depth + inward normals (same scene as bench.py);
     // nsq is the per-pixel cached 1/||ray||^2 exactly like the reference's
     // NormalEstimator n_sq_inv map (VolumetricGradSdf.cpp:116)
     std::vector<float> depth(W * H), nsqmap(W * H);

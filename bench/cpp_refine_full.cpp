@@ -16,7 +16,7 @@
 //   * updates              OptimizerAux.cpp:108-205 (clamps, step rejection,
 //                          updateGrad FD refresh)
 //
-// Pass structure: like the TPU build's loop (refine/optimizer.py), each
+// Pass structure: like the JAX build's loop (refine/optimizer.py), each
 // block runs ONE residual pass at the post-update state, consumed both as
 // the energy input and as the next block's linearization point — HALF the
 // residual passes of the literal reference (each optimize*All plus each

@@ -5,11 +5,11 @@ but its SHAPE isn't: this script runs the LED model with the shipped
 config_basket_LED.json settings (voxel 0.01, truncation 5, cauchy lam=0.2,
 reg_n=0.1, reg_l=5.0, damping 3.0, upsample=true) over a synthetic
 near-field 640x480 sequence at a 128^3 grid, to convergence, on the real
-chip — crossing the iteration-5 upsample to 256^3.  The measured trace is
-recorded in BASELINE.md and pinned by the TPU-gated golden
-tests/test_goldens.py::test_led_upsample_production_golden.
+GPU — crossing the iteration-5 upsample to 256^3.  The trace is pinned by
+the GPU-gated golden tests/test_goldens.py::test_led_upsample_production_golden.
 
-Usage: python bench/led_rehearsal.py [outdir]
+Usage: python bench/led_rehearsal.py [outdir]   (default: led_rehearsal_out
+under the current directory)
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 
 def main():
-    out_root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/led_rehearsal"
+    out_root = sys.argv[1] if len(sys.argv) > 1 else "led_rehearsal_out"
     data = os.path.join(out_root, "data") + "/"
     out = os.path.join(out_root, "out") + "/"
     os.makedirs(data, exist_ok=True)
@@ -38,8 +38,8 @@ def main():
     print(f"[led-rehearsal] dataset built in {time.perf_counter()-t0:.1f}s",
           file=sys.stderr, flush=True)
 
-    from psgradientsdf_tpu.config import parse_config
-    from psgradientsdf_tpu.pipeline import ReconstructionPipeline
+    from psgradientsdf.config import parse_config
+    from psgradientsdf.pipeline import ReconstructionPipeline
 
     raw = {
         "input": data, "output": out, "pose filename": "pose.txt",
@@ -61,8 +61,7 @@ def main():
     }
     cfg = parse_config(raw)
     t1 = time.perf_counter()
-    pipe = ReconstructionPipeline(
-        cfg, compile_cache_dir="/tmp/psgsdf_xla_cache")
+    pipe = ReconstructionPipeline(cfg)
     summary = pipe.run(refine=True)
     wall = time.perf_counter() - t1
     print(f"[led-rehearsal] pipeline wall {wall:.1f}s summary={summary}",

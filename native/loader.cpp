@@ -1,15 +1,15 @@
 // Native data-loader core: PNG decode for the RGB-D frame pipeline.
 //
-// TPU-native counterpart of the reference's C++ image-loading layer
+// Counterpart of the reference's C++ image-loading layer
 // (cpp/include/img_loader/ImageLoader.h:130-188 — 16-bit depth PNGs and
 // 8-bit color PNGs decoded via OpenCV).  Here the decode is libpng
 // directly, exposed over a C ABI and loaded from Python via ctypes
-// (psgradientsdf_tpu/native.py); io/loaders.py falls back to cv2 when
-// this library is unavailable.  The prefetching loader (io/prefetch.py)
+// (psgradientsdf/native.py); io/loaders.py falls back to the zlib codec
+// in io/png.py when this library is unavailable.  The prefetching loader (io/prefetch.py)
 // calls these from worker threads — every function is re-entrant and
 // holds no global state, and ctypes releases the GIL around the call.
 //
-// Semantics match the cv2 paths in io/loaders.py:
+// Semantics match the io/png.py fallback in io/loaders.py:
 //   * depth  (psg_png_read_u16): 16-bit grayscale returned in host byte
 //     order; 8-bit grayscale widened value-preserving to u16.
 //   * color  (psg_png_read_rgb8): any PNG (palette / gray / 16-bit /
@@ -79,8 +79,8 @@ int psg_png_probe(const char* path, int32_t* w, int32_t* h,
 
 // Grayscale depth map -> uint16 buffer of capacity cap (elements).
 // 16-bit stays exact (byte-swapped to host order); 8-bit widens
-// value-preserving (matches cv2 IMREAD_ANYDEPTH numerics after the
-// float32 * unit conversion in io/loaders.py).
+// value-preserving (the float32 * unit conversion in io/loaders.py
+// then gives the same metres as OpenCV's IMREAD_ANYDEPTH).
 int psg_png_read_u16(const char* path, uint16_t* out, int64_t cap) {
   Reader r;
   if (!r.open(path)) return 1;
@@ -123,7 +123,7 @@ int psg_png_read_u16(const char* path, uint16_t* out, int64_t cap) {
 
 // Any PNG -> 8-bit RGB (H*W*3 bytes into out, capacity cap bytes).
 // Palette/gray expanded, 16-bit narrowed, alpha stripped — the same
-// normalization cv2.imread applies before the loader's BGR->RGB swap.
+// normalization OpenCV's imread applies (in BGR order).
 int psg_png_read_rgb8(const char* path, uint8_t* out, int64_t cap) {
   Reader r;
   if (!r.open(path)) return 1;

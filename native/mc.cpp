@@ -1,10 +1,10 @@
 // Native marching-cubes core for mesh export.
 //
-// TPU-native counterpart of the reference's mc_lib (cpp/third/mesh/
+// Counterpart of the reference's mc_lib (cpp/third/mesh/
 // MarchingCubes.{h,cpp}, MarchingCubesNoColor.{h,cpp}): zero-isosurface
 // extraction with edge-interpolated vertices/colors and the all-8-corner
 // weight gate (MarchingCubes.cpp:528-535).  The triangle LUT is passed in
-// from Python (psgradientsdf_tpu/ops/mc_tables.py derives it at import
+// from Python (psgradientsdf/ops/mc_tables.py derives it at import
 // time), so the native and numpy paths produce identical topology.
 //
 // Exported C ABI (ctypes):

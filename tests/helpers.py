@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import make_volume, fuse_frame
-from psgradientsdf_tpu.utils import se3
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import make_volume, fuse_frame
+from psgradientsdf.utils import se3
 
 
 def wavy_scene(dim=64, h=0.02, H=96, W=96, f=90.0, poses=None, albedo_fn=None):
@@ -83,7 +83,7 @@ def shaded_images(frames, light_sh, order=1):
     I = albedo * (l . SH(n_out)) using the OUTWARD (camera-facing) normal —
     the convention of the refinement's FD-gradient shading normal
     (the fused Gradient-SDF gradient points outward, grad -= w R n_inward)."""
-    from psgradientsdf_tpu.utils import sh as sh_mod
+    from psgradientsdf.utils import sh as sh_mod
 
     imgs = []
     for fr in frames:

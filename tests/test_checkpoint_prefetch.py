@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.config import OptimizerConfig, SH1
-from psgradientsdf_tpu.io import checkpoint as ckpt
-from psgradientsdf_tpu.io.prefetch import PrefetchLoader
-from psgradientsdf_tpu.refine.optimizer import PhotometricRefiner
-from psgradientsdf_tpu.utils import robust
+from psgradientsdf.config import OptimizerConfig, SH1
+from psgradientsdf.io import checkpoint as ckpt
+from psgradientsdf.io.prefetch import PrefetchLoader
+from psgradientsdf.refine.optimizer import PhotometricRefiner
+from psgradientsdf.utils import robust
 
 from helpers import wavy_scene, shaded_images
 
@@ -59,7 +59,7 @@ def test_refine_state_roundtrip(tmp_path):
 def test_refine_midrun_checkpoint_resume_exact(tmp_path):
     """A run resumed from a mid-loop checkpoint must finish bit-identical
     to the uninterrupted run (SURVEY §5.4: resume must be exact)."""
-    from psgradientsdf_tpu.utils import se3
+    from psgradientsdf.utils import se3
 
     def build():
         poses = [jnp.eye(4, dtype=jnp.float32),
@@ -109,7 +109,7 @@ def test_refine_checkpoint_after_upsample_resumes_exact(tmp_path):
     resume bit-exactly.  The upsample + loop state are planted directly
     (alternating GN is not monotone on this scene, so a natural run rarely
     survives to iteration 6 — the divergence abort is reference behavior)."""
-    from psgradientsdf_tpu.utils import se3
+    from psgradientsdf.utils import se3
 
     def build():
         poses = [jnp.eye(4, dtype=jnp.float32),

@@ -32,16 +32,16 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import make_volume, fuse_frame
-from psgradientsdf_tpu.tracking.tracker import track_frame
-from psgradientsdf_tpu.utils.se3 import se3_exp
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import make_volume, fuse_frame
+from psgradientsdf.tracking.tracker import track_frame
+from psgradientsdf.utils.se3 import se3_exp
 
 W, H, DIM, FRAMES = 64, 48, 32, 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_cpp(tmp_path):
+def _run_cpp(tmp_path, W=W, H=H, DIM=DIM, FRAMES=FRAMES):
     src = os.path.join(REPO, "bench", "cpp_baseline.cpp")
     binp = str(tmp_path / "cpp_baseline")
     dump = str(tmp_path / "dump.bin")
@@ -70,7 +70,7 @@ def _run_cpp(tmp_path):
     return poses, iters, dist, weight, grad, red
 
 
-def _scene():
+def _scene(W=W, H=H):
     """Exact replica of cpp_baseline.cpp's synthetic scene."""
     fx = fy = 0.9 * W
     cx, cy = W / 2.0, H / 2.0

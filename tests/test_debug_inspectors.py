@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import fuse_frame, make_volume
-from psgradientsdf_tpu.ops.normals import build_fals_cache, compute_normals
-from psgradientsdf_tpu.utils import debug
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import fuse_frame, make_volume
+from psgradientsdf.ops.normals import build_fals_cache, compute_normals
+from psgradientsdf.utils import debug
 
 
 def test_grid_slice_layouts(tmp_path):

@@ -19,13 +19,12 @@ import json
 import os
 
 import numpy as np
-import pytest
 
-cv2 = pytest.importorskip("cv2")
+from psgradientsdf.io import png
 
-from psgradientsdf_tpu import cli
-from psgradientsdf_tpu.config import load_config
-from psgradientsdf_tpu.pipeline import ReconstructionPipeline
+from psgradientsdf import cli
+from psgradientsdf.config import load_config
+from psgradientsdf.pipeline import ReconstructionPipeline
 
 
 # order-2 SH basis, reference layout (PsOptimizerJa.cpp:17-28)
@@ -86,10 +85,10 @@ def make_sh2_dataset(root, n_frames=6, H=64, W=80, f=70.0):
         rgb = np.clip(albedo * irr[..., None], 0, 1)
 
         stamp = f"{i + 1:03d}"
-        cv2.imwrite(os.path.join(root, "depth", stamp + ".png"),
-                    np.clip(z * 1000.0, 0, 65535).astype(np.uint16))
-        cv2.imwrite(os.path.join(root, "rgb", stamp + ".png"),
-                    np.clip(rgb * 255, 0, 255).astype(np.uint8)[..., ::-1])
+        png.write(os.path.join(root, "depth", stamp + ".png"),
+                  np.clip(z * 1000.0, 0, 65535).astype(np.uint16))
+        png.write(os.path.join(root, "rgb", stamp + ".png"),
+                  np.clip(rgb * 255, 0, 255).astype(np.uint8))
         t = T[:3, 3]
         gt_lines.append(f"{stamp} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} 0 0 0 1")
 

@@ -13,16 +13,14 @@ import os
 import numpy as np
 import pytest
 
-cv2 = pytest.importorskip("cv2")
-
 DATA = "/root/reference/data/sokrates-mvs/"
 pytestmark = pytest.mark.skipif(
     not os.path.isdir(DATA), reason="sokrates demo data not mounted"
 )
 
-from psgradientsdf_tpu.config import parse_config
-from psgradientsdf_tpu.io.ply import read_ply_header
-from psgradientsdf_tpu.pipeline import ReconstructionPipeline
+from psgradientsdf.config import parse_config
+from psgradientsdf.io.ply import read_ply_header
+from psgradientsdf.pipeline import ReconstructionPipeline
 
 
 def test_sokrates_golden(tmp_path):

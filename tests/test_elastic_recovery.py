@@ -8,9 +8,6 @@ import os
 import sys
 
 import numpy as np
-import pytest
-
-cv2 = pytest.importorskip("cv2")
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_e2e_tum_tracking import make_tum_dataset  # noqa: E402
@@ -36,7 +33,7 @@ def test_cli_retries_resume_from_checkpoint(tmp_path, monkeypatch):
         json.dump(cfg, fh)
 
     # inject ONE failure after the second chunk of the first attempt
-    from psgradientsdf_tpu import pipeline as pipe_mod
+    from psgradientsdf import pipeline as pipe_mod
     real = pipe_mod.process_chunk
     calls = {"n": 0, "failed": False}
 
@@ -49,7 +46,7 @@ def test_cli_retries_resume_from_checkpoint(tmp_path, monkeypatch):
 
     monkeypatch.setattr(pipe_mod, "process_chunk", flaky)
 
-    from psgradientsdf_tpu import cli
+    from psgradientsdf import cli
     rc = cli.main([
         "--config_file", cfg_path, "--no-refine", "--platform", "cpu",
         "--checkpoint-every", "2", "--retries", "2",
@@ -58,7 +55,7 @@ def test_cli_retries_resume_from_checkpoint(tmp_path, monkeypatch):
     assert calls["failed"]
 
     # full trajectory despite the mid-scan failure
-    from psgradientsdf_tpu.io.trajectory import ate_rmse, read_trajectory
+    from psgradientsdf.io.trajectory import ate_rmse, read_trajectory
     _, est = read_trajectory(os.path.join(out, "tracking_poses.txt"))
     assert len(est) == 8
     _, gt = read_trajectory(os.path.join(data, "groundtruth.txt"))
@@ -91,7 +88,7 @@ def test_cli_retry_skips_torn_refine_checkpoint(tmp_path, monkeypatch):
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
 
-    from psgradientsdf_tpu import pipeline as pipe_mod
+    from psgradientsdf import pipeline as pipe_mod
     real = pipe_mod.process_chunk
     calls = {"n": 0, "failed": False}
 
@@ -113,7 +110,7 @@ def test_cli_retry_skips_torn_refine_checkpoint(tmp_path, monkeypatch):
 
     monkeypatch.setattr(pipe_mod, "process_chunk", flaky)
 
-    from psgradientsdf_tpu import cli
+    from psgradientsdf import cli
     rc = cli.main([
         "--config_file", cfg_path, "--no-refine", "--platform", "cpu",
         "--checkpoint-every", "2", "--retries", "2",
@@ -123,7 +120,7 @@ def test_cli_retry_skips_torn_refine_checkpoint(tmp_path, monkeypatch):
 
     # the retry resumed from the SCAN checkpoint despite the newer (torn)
     # refine one, and the run completed with a full trajectory
-    from psgradientsdf_tpu.io.trajectory import read_trajectory
+    from psgradientsdf.io.trajectory import read_trajectory
     _, est = read_trajectory(os.path.join(out, "tracking_poses.txt"))
     assert len(est) == 8
     lines = [json.loads(l) for l in open(os.path.join(out, "metrics.jsonl"))]

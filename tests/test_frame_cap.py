@@ -22,10 +22,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.config import parse_config
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import fuse_frame, make_volume
-from psgradientsdf_tpu.pipeline import ReconstructionPipeline
+from psgradientsdf.config import parse_config
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import fuse_frame, make_volume
+from psgradientsdf.pipeline import ReconstructionPipeline
 
 
 def _cfg(extra=None, **kw):
@@ -85,7 +85,6 @@ def test_vis_bits_correct_past_default_cap():
 
 @pytest.fixture(scope="module")
 def tum40(tmp_path_factory):
-    cv2 = pytest.importorskip("cv2")  # noqa: F841
     from tests.test_e2e_tum_tracking import make_tum_dataset
 
     root = str(tmp_path_factory.mktemp("tum40") / "data") + "/"

@@ -11,8 +11,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import (
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import (
     fuse_frame,
     fuse_frame_culled,
     make_volume,
@@ -30,7 +30,7 @@ def _assert_equal_vol(got, ref):
 
 
 def _poses():
-    from psgradientsdf_tpu.utils import se3
+    from psgradientsdf.utils import se3
 
     rng = np.random.default_rng(7)
     poses = [np.eye(4, dtype=np.float32)]
@@ -131,9 +131,15 @@ def test_culled_empty_depth_and_gate():
 
 def test_sharded_culled_matches_single_device():
     """Per-slab cull under shard_map (parallel/shard.py) == single-device
-    fuse_frame, bit for bit, across generic poses; slab-level overflow
-    surfaces through the psum'd flag."""
-    from psgradientsdf_tpu.parallel import mesh as mesh_mod, shard
+    fuse_frame across generic poses; slab-level overflow surfaces through
+    the psum'd flag.
+
+    The comparison allows a few ulp (atol 1e-6 on values of order 1): the
+    sharded program is compiled separately from the single-device one, and
+    XLA may contract or reorder the float32 grad/dist accumulation
+    differently in each (measured: 30 of 98,304 grad elements 1 ulp apart,
+    max abs diff 5.96e-8).  Visibility bits are compared exactly."""
+    from psgradientsdf.parallel import mesh as mesh_mod, shard
 
     sc = wavy_scene(dim=32, h=0.04, H=48, W=64, f=50.0)
     geom, T = sc["geom"], sc["truncation"]
@@ -157,7 +163,13 @@ def test_sharded_culled_matches_single_device():
             vol_c, fr["color"], fr["depth"], fr["normals"], fr["n_sq_inv"],
             sc["K"], pj, jnp.int32(fi))
         assert not bool(ov)
-        _assert_equal_vol(vol_c, vol_e)
+        for name in ("dist", "grad", "weight", "color"):
+            np.testing.assert_allclose(
+                np.asarray(getattr(vol_c, name)),
+                np.asarray(getattr(vol_e, name)), rtol=0, atol=1e-6,
+                err_msg=name)
+        np.testing.assert_array_equal(np.asarray(vol_c.vis),
+                                      np.asarray(vol_e.vis))
     # output stays Z-slab sharded
     assert "z" in str(vol_c.dist.sharding.spec)
 
@@ -211,7 +223,7 @@ def test_packed_matches_exact(cap_frac):
     """fuse_frame_culled_packed on PackedVolume state == fuse_frame to ~ULP
     (same poses/overflow contract as test_culled_matches_exact), and the
     PackedVolume round-trip is lossless."""
-    from psgradientsdf_tpu.core.volume import (
+    from psgradientsdf.core.volume import (
         PackedVolume, fuse_frame_culled_packed,
     )
 
@@ -247,9 +259,9 @@ def test_packed_matches_exact(cap_frac):
 def test_packed_tracking_matches_unpacked():
     """track_frame(PackedVolume) == track_frame(GradSdfVolume) exactly —
     the packed payload's slots 0,1:4,4 feed the same gather."""
-    from psgradientsdf_tpu.core.volume import PackedVolume
-    from psgradientsdf_tpu.tracking.tracker import track_frame
-    from psgradientsdf_tpu.utils import se3
+    from psgradientsdf.core.volume import PackedVolume
+    from psgradientsdf.tracking.tracker import track_frame
+    from psgradientsdf.utils import se3
 
     sc = wavy_scene(dim=32, h=0.04, H=48, W=64, f=50.0)
     geom, T = sc["geom"], sc["truncation"]
@@ -290,13 +302,13 @@ def _assert_equal_vol_grad_ulp(got, ref):
         f"grad beyond 4 ULP: max {np.abs(a - b).max()}")
 
 
-@pytest.mark.parametrize("rows_impl", ["xla2d", "pallas"])
+@pytest.mark.parametrize("rows_impl", ["xla2d"])
 def test_rows_impl_variants_bit_identical(rows_impl):
-    """The barrier-fenced 2-D copy and Pallas row-DMA state movement
-    (round-4, _state_rows_gather/_state_rows_scatter) match fuse_frame —
+    """The barrier-fenced 2-D copy state movement
+    (_state_rows_gather/_state_rows_scatter) matches fuse_frame —
     bit-identical except grad within 1 ULP (_assert_equal_vol_grad_ulp) —
     including the duplicate-first-active capacity padding."""
-    from psgradientsdf_tpu.core.volume import (
+    from psgradientsdf.core.volume import (
         PackedVolume, fuse_frame_culled_packed,
     )
 
@@ -334,7 +346,7 @@ def test_fuse_frames_batched_bit_identical(rows_impl):
     order on once-gathered union rows.  Covers a vis word boundary
     (ids 30..35 span words 0 and 1), per-frame gates, and the overflow
     flag on an undersized capacity."""
-    from psgradientsdf_tpu.core.volume import fuse_frames_culled
+    from psgradientsdf.core.volume import fuse_frames_culled
 
     del rows_impl  # batched kernel currently ships the xla movement only
     sc = wavy_scene(dim=32, h=0.04, H=48, W=64, f=50.0)

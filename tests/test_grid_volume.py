@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.core.grid import GridGeometry, trilinear
-from psgradientsdf_tpu.core import volume as vol_mod
-from psgradientsdf_tpu.core.volume import (
+from psgradientsdf.core.grid import GridGeometry, trilinear
+from psgradientsdf.core import volume as vol_mod
+from psgradientsdf.core.volume import (
     GradSdfVolume,
     fuse_frame,
     fusion_weight,

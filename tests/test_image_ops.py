@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.ops import image
+from psgradientsdf.ops import image
 
 
 def make_img(h=6, w=8):

@@ -11,13 +11,10 @@ buffers.
 """
 
 import numpy as np
-import pytest
 
-cv2 = pytest.importorskip("cv2")
-
-from psgradientsdf_tpu.config import parse_config
-from psgradientsdf_tpu.pipeline import ReconstructionPipeline
-from psgradientsdf_tpu.refine.optimizer import PhotometricRefiner
+from psgradientsdf.config import parse_config
+from psgradientsdf.pipeline import ReconstructionPipeline
+from psgradientsdf.refine.optimizer import PhotometricRefiner
 
 from test_e2e_led_cli import make_led_dataset
 

@@ -23,13 +23,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.config import OptimizerConfig, LED
-from psgradientsdf_tpu.refine import jacobians, solvers
-from psgradientsdf_tpu.refine.jacobians import DistJacobian
-from psgradientsdf_tpu.refine.optimizer import (
+from psgradientsdf.config import OptimizerConfig, LED
+from psgradientsdf.refine import jacobians, solvers
+from psgradientsdf.refine.jacobians import DistJacobian
+from psgradientsdf.refine.optimizer import (
     PhotometricRefiner, _albedo_block, _light_block, _pose_block, _residuals,
 )
-from psgradientsdf_tpu.utils import robust, se3
+from psgradientsdf.utils import robust, se3
 
 from helpers import wavy_scene
 from test_refine_led_upsample import led_images
@@ -99,7 +99,7 @@ def _run_alternating(ref, state, neighbor_sign, iters=4):
                     ref.images, ref.K, lights)
 
     def ps_energy():
-        from psgradientsdf_tpu.refine import render
+        from psgradientsdf.refine import render
         rd = _residuals(*args(), **full_kw)
         return float(render.ps_energy(ref.prob, rd, loss=robust.CAUCHY,
                                       lam=0.2))

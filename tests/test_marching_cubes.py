@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.ops.mc_tables import EDGE_TABLE, TRI_TABLE, MAX_TRIS
-from psgradientsdf_tpu.ops.marching_cubes import marching_cubes, extract_mesh_from_volume
+from psgradientsdf.ops.mc_tables import EDGE_TABLE, TRI_TABLE, MAX_TRIS
+from psgradientsdf.ops.marching_cubes import marching_cubes, extract_mesh_from_volume
 
 
 def test_tables_shape_and_empty_cases():
@@ -129,7 +129,7 @@ def test_gradient_mc_vertex_placement():
     (GradMarchingCubes.cpp:707-714) — on an exact-SDF sphere all vertices
     must land on the sphere surface."""
     import numpy as np
-    from psgradientsdf_tpu.ops.marching_cubes import marching_cubes
+    from psgradientsdf.ops.marching_cubes import marching_cubes
 
     n = 24
     h = 0.04

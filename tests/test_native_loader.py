@@ -1,9 +1,9 @@
 """Native libpng decoder (native/loader.cpp) vs cv2: exact equality.
 
-The native library is the TPU-build counterpart of the reference's C++
+The native library is this build's counterpart of the reference's C++
 image loading layer (cpp/include/img_loader/ImageLoader.h:130-188); the
-loaders fall back to cv2 when it is absent, so these tests skip rather
-than fail without libpng.
+loaders fall back to io/png.py when it is absent, so these tests skip
+rather than fail without libpng.
 """
 
 import os
@@ -13,8 +13,8 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from psgradientsdf_tpu import native
-from psgradientsdf_tpu.io.loaders import _imread_color_raw, _imread_depth_raw
+from psgradientsdf import native
+from psgradientsdf.io.loaders import _imread_color_raw, _imread_depth_raw
 
 SOKRATES = "/root/reference/data/sokrates-mvs"
 
@@ -122,7 +122,7 @@ def test_load_albedo(tmp_path):
     """ImageLoader.load_albedo (ImageLoader.h:190-214): color file relative
     to the dataset path -> [H,W,3] float32 in [0,1]; empty filename / a
     missing file -> None (the reference returns false)."""
-    from psgradientsdf_tpu.io.loaders import SynthLoader
+    from psgradientsdf.io.loaders import SynthLoader
 
     rng = np.random.default_rng(5)
     img = (rng.random((12, 16, 3)) * 255).astype(np.uint8)
@@ -140,7 +140,7 @@ def test_load_albedo(tmp_path):
 def test_multiview_load_keyframe(tmp_path):
     """MultiviewLoader.load_keyframe (MultiviewLoader.h:60-91): 6-digit
     frame+1 naming, stateless (counter untouched)."""
-    from psgradientsdf_tpu.io.loaders import MultiviewLoader
+    from psgradientsdf.io.loaders import MultiviewLoader
 
     rng = np.random.default_rng(7)
     img = (rng.random((10, 12, 3)) * 255).astype(np.uint8)

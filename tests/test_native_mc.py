@@ -4,9 +4,9 @@ reference path: identical triangle geometry on random SDF fields."""
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.native import get_lib, marching_cubes_native
-from psgradientsdf_tpu.ops.marching_cubes import Mesh, marching_cubes
-from psgradientsdf_tpu.ops.mc_tables import TRI_TABLE
+from psgradientsdf.native import get_lib, marching_cubes_native
+from psgradientsdf.ops.marching_cubes import Mesh, marching_cubes
+from psgradientsdf.ops.mc_tables import TRI_TABLE
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="native lib unavailable")
 
@@ -83,8 +83,8 @@ def test_native_ply_writers_match_python(tmp_path):
     Python fallback (same %g formatting)."""
     import os
     import numpy as np
-    from psgradientsdf_tpu.io import ply
-    from psgradientsdf_tpu.native import get_lib
+    from psgradientsdf.io import ply
+    from psgradientsdf.native import get_lib
 
     if get_lib() is None:
         import pytest

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from psgradientsdf_tpu.ops import normals as nrm
-from psgradientsdf_tpu.ops import sharpness
+from psgradientsdf.ops import normals as nrm
+from psgradientsdf.ops import sharpness
 
 
 def test_fals_flat_wall_normal():

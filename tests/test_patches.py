@@ -4,8 +4,8 @@ bit for bit at in-image coordinates (including every border fallback)."""
 import numpy as np
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.ops.image import bilinear_rgb, image_gradient_rgb
-from psgradientsdf_tpu.refine.patches import sample_patch_all
+from psgradientsdf.ops.image import bilinear_rgb, image_gradient_rgb
+from psgradientsdf.refine.patches import sample_patch_all
 
 
 def _check(images, uv):
@@ -55,7 +55,7 @@ def test_sample_patch_scan_path_bitexact():
     the all-frames vmap path to 1 ulp (different fusion order)."""
     import numpy as np
     import jax.numpy as jnp
-    import psgradientsdf_tpu.refine.patches as P
+    import psgradientsdf.refine.patches as P
 
     rng = np.random.default_rng(0)
     imgs = jnp.asarray(rng.random((3, 40, 50, 3), np.float32))

@@ -15,11 +15,9 @@ import os
 import numpy as np
 import pytest
 
-cv2 = pytest.importorskip("cv2")
-
-from psgradientsdf_tpu.config import parse_config
-from psgradientsdf_tpu.pipeline import ReconstructionPipeline
-from psgradientsdf_tpu.io.trajectory import read_trajectory
+from psgradientsdf.config import parse_config
+from psgradientsdf.pipeline import ReconstructionPipeline
+from psgradientsdf.io.trajectory import read_trajectory
 
 from test_e2e_led_cli import make_led_dataset
 from test_e2e_tum_tracking import make_tum_dataset
@@ -195,7 +193,7 @@ def test_pipeline_mesh_tracking(tmp_path):
         assert summary["frames"] == 8
         est_st, est = read_trajectory(os.path.join(out, "tracking_poses.txt"))
         gt_st, gt = read_trajectory(os.path.join(data, "groundtruth.txt"))
-        from psgradientsdf_tpu.io.trajectory import ate_rmse
+        from psgradientsdf.io.trajectory import ate_rmse
         ates[tag] = ate_rmse(est, gt)
 
     # both track well (same bound as the single-device e2e test) and agree

@@ -6,12 +6,9 @@ import json
 import os
 
 import numpy as np
-import pytest
 
-cv2 = pytest.importorskip("cv2")
-
-from psgradientsdf_tpu.config import parse_config
-from psgradientsdf_tpu.pipeline import ReconstructionPipeline
+from psgradientsdf.config import parse_config
+from psgradientsdf.pipeline import ReconstructionPipeline
 from tests.test_e2e_tum_tracking import make_tum_dataset
 
 

@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.refine.problem import (
+from psgradientsdf.refine.problem import (
     extract_problem, extract_problem_host, _pad_cap,
 )
-from psgradientsdf_tpu.utils import se3
+from psgradientsdf.utils import se3
 
 from helpers import wavy_scene
 

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.refine import geometry, jacobians, render
-from psgradientsdf_tpu.refine.problem import extract_problem
-from psgradientsdf_tpu.refine import solvers
-from psgradientsdf_tpu.utils import sh as sh_mod
+from psgradientsdf.refine import geometry, jacobians, render
+from psgradientsdf.refine.problem import extract_problem
+from psgradientsdf.refine import solvers
+from psgradientsdf.utils import sh as sh_mod
 
 from helpers import wavy_scene
 

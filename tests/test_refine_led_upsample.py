@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.config import OptimizerConfig, LED
-from psgradientsdf_tpu.refine.optimizer import (
+from psgradientsdf.config import OptimizerConfig, LED
+from psgradientsdf.refine.optimizer import (
     PhotometricRefiner, _albedo_block, _dist_block, _light_block, _pose_block,
 )
-from psgradientsdf_tpu.refine.upsample import upsample_volume
-from psgradientsdf_tpu.core.volume import vis_bit
-from psgradientsdf_tpu.utils import robust
+from psgradientsdf.refine.upsample import upsample_volume
+from psgradientsdf.core.volume import vis_bit
+from psgradientsdf.utils import robust
 
 from helpers import wavy_scene
 
@@ -120,7 +120,7 @@ def test_upsample_volume():
 
 def test_upsampled_geometry_children_tile_parent():
     """Child voxel centers must lie inside the parent cube (VoxelGrid.h:143-149)."""
-    from psgradientsdf_tpu.core.grid import GridGeometry
+    from psgradientsdf.core.grid import GridGeometry
     g = GridGeometry(dims=(8, 8, 8), voxel_size=0.1, shift=(0.0, 0.0, 1.0))
     g2 = g.subdivided()
     p = np.asarray(g.voxel2world(jnp.array([3, 4, 5])))

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.config import OptimizerConfig, SH1, LED
-from psgradientsdf_tpu.refine.optimizer import PhotometricRefiner
-from psgradientsdf_tpu.utils import robust, se3
+from psgradientsdf.config import OptimizerConfig, SH1, LED
+from psgradientsdf.refine.optimizer import PhotometricRefiner
+from psgradientsdf.utils import robust, se3
 
 from helpers import wavy_scene, shaded_images
 
@@ -54,7 +54,7 @@ def test_albedo_block_reduces_energy():
     # set lights to ground truth so the albedo solve has the right target
     ref.lights = jnp.broadcast_to(light_gt, ref.lights.shape)
     E0 = ref.energies()[0]
-    from psgradientsdf_tpu.refine.optimizer import _albedo_block
+    from psgradientsdf.refine.optimizer import _albedo_block
     for _ in range(3):
         ref.albedo = _albedo_block(
             *ref._args(), **ref._static_kwargs(), reg_weight_rho=0.0, damping=1.0
@@ -72,7 +72,7 @@ def test_light_block_recovers_light_with_gt_albedo():
     reference, so direction recovery is only testable this way.)"""
     ref, light_gt = build_refiner()
     # ground-truth albedo at the surface points
-    from psgradientsdf_tpu.refine import render as render_mod
+    from psgradientsdf.refine import render as render_mod
     pts = render_mod.surface_points_world(
         ref.prob, ref.geom, ref.dist, ref.grad_stored
     )
@@ -85,7 +85,7 @@ def test_light_block_recovers_light_with_gt_albedo():
         ],
         axis=-1,
     )
-    from psgradientsdf_tpu.refine.optimizer import _light_block
+    from psgradientsdf.refine.optimizer import _light_block
     E0 = ref.energies()[0]
     for _ in range(2):
         ref.lights = _light_block(*ref._args(), **ref._static_kwargs(), damping=1.0)
@@ -122,7 +122,7 @@ def test_dist_block_reduces_geometry_error():
     )
     ref.dist = d_true + jnp.where(ref.prob.valid, noise, 0.0)
     E0 = ref.energies()[0]
-    from psgradientsdf_tpu.refine.optimizer import _dist_block
+    from psgradientsdf.refine.optimizer import _dist_block
     for _ in range(2):
         ref.dist, ref.grad_stored = _dist_block(
             *ref._args(), **ref._static_kwargs(),
@@ -139,7 +139,7 @@ def test_pcg_fixed_matches_scipy_cg():
     import numpy as np
     import jax.numpy as jnp
     import jax
-    from psgradientsdf_tpu.refine.solvers import pcg_fixed
+    from psgradientsdf.refine.solvers import pcg_fixed
 
     rng = np.random.default_rng(0)
     A_np = rng.normal(size=(64, 64)).astype(np.float32)
@@ -161,9 +161,9 @@ def test_joint_dist_pose_schur_matches_dense():
     """Schur-complement elimination == dense joint solve on the real
     (small-N) refinement system."""
     import jax
-    from psgradientsdf_tpu.refine import jacobians
-    from psgradientsdf_tpu.refine.optimizer import _residuals
-    from psgradientsdf_tpu.refine import solvers
+    from psgradientsdf.refine import jacobians
+    from psgradientsdf.refine.optimizer import _residuals
+    from psgradientsdf.refine import solvers
 
     ref, light_gt = build_refiner()
     ref.init_albedo()
@@ -232,7 +232,7 @@ def test_joint_dp_step_reduces_energy():
     ref.cfg.joint_dp = True
     E0 = ref.energies()
     tot0 = E0[0] + 0.5 * E0[1]
-    from psgradientsdf_tpu.refine.optimizer import _joint_dp_step
+    from psgradientsdf.refine.optimizer import _joint_dp_step
     d, g, p, e = _joint_dp_step(
         *ref._args(), **ref._static_kwargs(),
         reg_weight_n=0.5, reg_weight_l=0.0, damping=1.0,
@@ -247,7 +247,7 @@ def test_sh2_alternating_optimize_reduces_energy():
     """End-to-end SH order-2: alternating refinement runs and reduces the
     photometric energy (9-coefficient lights, order-2 dSH/dn in the
     distance Jacobian — PsOptimizerJa.cpp:17-28,253-289)."""
-    from psgradientsdf_tpu.config import SH2
+    from psgradientsdf.config import SH2
     from helpers import wavy_scene, shaded_images
 
     poses = [jnp.eye(4, dtype=jnp.float32)]
@@ -312,7 +312,7 @@ def test_pose_block_chunked_matches_full():
     _POSE_CHUNK does not invalidate jax.jit's trace cache, so going through
     the jitted entry point would silently compare the cached full path with
     itself."""
-    import psgradientsdf_tpu.refine.optimizer as O
+    import psgradientsdf.refine.optimizer as O
 
     ref, _ = build_refiner()
     N = int(ref.prob.dist.shape[0])
@@ -337,8 +337,8 @@ def test_warm_compile_parallel(tmp_path):
     import jax
 
     from helpers import wavy_scene
-    from psgradientsdf_tpu.config import OptimizerConfig
-    from psgradientsdf_tpu.refine.optimizer import PhotometricRefiner
+    from psgradientsdf.config import OptimizerConfig
+    from psgradientsdf.refine.optimizer import PhotometricRefiner
 
     prev = jax.config.jax_compilation_cache_dir
     jax.config.update("jax_compilation_cache_dir", str(tmp_path / "cache"))
@@ -370,7 +370,7 @@ def test_fused_iteration_matches_blocks(model, joint, tmp_path):
     import json
     import os
 
-    from psgradientsdf_tpu.utils.metrics import MetricsLogger
+    from psgradientsdf.utils.metrics import MetricsLogger
 
     results = {}
     for tag, fused in (("blocks", False), ("fused", True)):

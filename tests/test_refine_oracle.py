@@ -19,24 +19,22 @@ import pytest
 
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import GradSdfVolume
-from psgradientsdf_tpu.refine import jacobians, render, solvers
-from psgradientsdf_tpu.refine.problem import extract_problem
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import GradSdfVolume
+from psgradientsdf.refine import jacobians, render, solvers
+from psgradientsdf.refine.problem import extract_problem
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "bench", "cpp_refine_oracle.cpp")
 
 
-@pytest.fixture(scope="module")
-def oracle(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("oracle"))
+def run_oracle(out, W=160, H=120, DIM=48, F=3):
+    """Build and run the C++ oracle into directory `out`; load its dump."""
     binp = os.path.join(out, "oracle")
     subprocess.run(["g++", "-O2", "-std=c++17", "-o", binp, SRC],
                    check=True, capture_output=True, timeout=180)
-    res = subprocess.run([binp, "160", "120", "48", "3", out],
-                         check=True, capture_output=True, text=True,
-                         timeout=300)
+    subprocess.run([binp, str(W), str(H), str(DIM), str(F), out],
+                   check=True, capture_output=True, text=True, timeout=300)
     meta = json.load(open(os.path.join(out, "meta.json")))
 
     def f32(name, shape):
@@ -63,8 +61,9 @@ def oracle(tmp_path_factory):
     return d
 
 
-@pytest.fixture(scope="module")
-def jax_problem(oracle):
+def build_jax_problem(oracle):
+    """The oracle's dumped volume as a JAX refinement problem, plus its
+    residuals (same surface ordering asserted)."""
     m = oracle["meta"]
     DIM, F = m["DIM"], m["F"]
     geom = GridGeometry(dims=(DIM, DIM, DIM), voxel_size=m["h"],
@@ -99,6 +98,16 @@ def jax_problem(oracle):
         K, lights, **kw)
     return dict(geom=geom, prob=prob, n=n, images=images, K=K, poses=poses,
                 lights=lights, kw=kw, rd=rd)
+
+
+@pytest.fixture(scope="module")
+def oracle(tmp_path_factory):
+    return run_oracle(str(tmp_path_factory.mktemp("oracle")))
+
+
+@pytest.fixture(scope="module")
+def jax_problem(oracle):
+    return build_jax_problem(oracle)
 
 
 def test_residuals_match(oracle, jax_problem):

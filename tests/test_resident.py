@@ -1,7 +1,7 @@
 """Resident streaming volume (core/resident.py) vs the canonical path.
 
-The resident state is the round-4 answer to the state-movement wall
-(BASELINE.md): rows stay compact across a chunk, fused in place, with
+The resident state is the round-4 answer to the state-movement wall:
+rows stay compact across a chunk, fused in place, with
 delta-allocation for rows entering the cull's active set and a
 flush+refresh at chunk boundaries.  These tests pin the contracts:
 
@@ -23,14 +23,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core import resident as R
-from psgradientsdf_tpu.core.volume import (
+from psgradientsdf.core import resident as R
+from psgradientsdf.core.volume import (
     PackedVolume,
     fuse_frame,
     make_volume,
 )
-from psgradientsdf_tpu.tracking.tracker import track_frame
-from psgradientsdf_tpu.utils import se3
+from psgradientsdf.tracking.tracker import track_frame
+from psgradientsdf.utils import se3
 
 from helpers import wavy_scene
 from test_fuse_culled import _assert_equal_vol_grad_ulp
@@ -61,7 +61,7 @@ def test_resident_fusion_bit_identical_fixed_poses(sc, seg):
     mid-chunk delta allocation (the orbit moves the active set), flush,
     and a second chunk epoch; seg=8 runs the slots at X-SEGMENT
     granularity (the production at-scale configuration)."""
-    from psgradientsdf_tpu.core.volume import fuse_frame_culled_packed
+    from psgradientsdf.core.volume import fuse_frame_culled_packed
 
     geom, T = sc["geom"], sc["truncation"]
     fr = sc["frames"][0]
@@ -151,7 +151,7 @@ def test_resident_tracked_stream_close(sc, seg):
     canonical stream: per-frame float noise amplifies through the
     track->fuse feedback, so the contract is closeness, not bits.
     seg=8 runs the slots at X-segment granularity."""
-    from psgradientsdf_tpu.core.volume import fuse_frame_culled_packed
+    from psgradientsdf.core.volume import fuse_frame_culled_packed
 
     geom, T = sc["geom"], sc["truncation"]
     fr = sc["frames"][0]

@@ -1,7 +1,6 @@
-"""Multi-chip scaling model inputs, pinned (round-4 VERDICT #4).
+"""Multi-chip Z-slab scan: the facts its scaling rests on, pinned.
 
-Three facts the scaling model (bench/scaling_model.py, BASELINE.md
-"Multi-chip scaling model") rests on, each checked here:
+Three facts, each checked here on the 8-device virtual CPU mesh:
 
   1. the interleaved-Z plane assignment is EXACT — sharded fusion on the
      strided layout matches the single-device culled kernel bit-for-bit,
@@ -20,16 +19,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import (
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import (
     _row_activity, fuse_frame_culled, make_volume,
 )
-from psgradientsdf_tpu.parallel import shard
-from psgradientsdf_tpu.parallel.hlo_comm import collective_bytes
-from psgradientsdf_tpu.parallel.mesh import (
+from psgradientsdf.parallel import shard
+from psgradientsdf.parallel.hlo_comm import collective_bytes
+from psgradientsdf.parallel.mesh import (
     deinterleave_volume, interleave_volume, make_mesh, shard_volume,
 )
-from psgradientsdf_tpu.tracking.tracker import track_frame
+from psgradientsdf.tracking.tracker import track_frame
 
 
 def _scene(W=64, H=48):
@@ -123,7 +122,7 @@ def test_interleaved_tracker_matches_single_device(mesh8z):
 
 
 def test_interleave_balances_bench_frustum():
-    """The scaling model's load-balance input: on the 512^3 bench frustum,
+    """Load balance: on the 512^3 bench frustum,
     contiguous Z-slabs are several-fold skewed while strided assignment
     is near-uniform."""
     DIM = 512

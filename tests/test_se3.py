@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.utils import se3
+from psgradientsdf.utils import se3
 
 
 def rand_xi(seed, scale=1.0):

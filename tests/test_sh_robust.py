@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgradientsdf_tpu.utils import robust, sh
+from psgradientsdf.utils import robust, sh
 
 
 def test_sh1_basis():

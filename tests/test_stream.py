@@ -6,11 +6,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import fuse_frame, make_volume
-from psgradientsdf_tpu.ops.normals import build_fals_cache, compute_normals
-from psgradientsdf_tpu.tracking.stream import process_chunk
-from psgradientsdf_tpu.tracking.tracker import track_frame
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import fuse_frame, make_volume
+from psgradientsdf.ops.normals import build_fals_cache, compute_normals
+from psgradientsdf.tracking.stream import process_chunk
+from psgradientsdf.tracking.tracker import track_frame
 
 H, W, DIM = 48, 64, 32
 
@@ -136,10 +136,10 @@ def test_chunk_raw_wire_matches_float():
     as pre-converted float frames."""
     import numpy as np
     import jax.numpy as jnp
-    from psgradientsdf_tpu.core.grid import GridGeometry
-    from psgradientsdf_tpu.core.volume import make_volume
-    from psgradientsdf_tpu.ops.normals import build_fals_cache
-    from psgradientsdf_tpu.tracking.stream import process_chunk
+    from psgradientsdf.core.grid import GridGeometry
+    from psgradientsdf.core.volume import make_volume
+    from psgradientsdf.ops.normals import build_fals_cache
+    from psgradientsdf.tracking.stream import process_chunk
 
     rng = np.random.default_rng(11)
     H, W, C = 32, 40, 3

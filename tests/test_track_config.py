@@ -3,8 +3,8 @@
 
 import pytest
 
-from psgradientsdf_tpu.config import parse_config
-from psgradientsdf_tpu.tracking import configs
+from psgradientsdf.config import parse_config
+from psgradientsdf.tracking import configs
 
 
 def _cfg(extra):
@@ -16,18 +16,18 @@ def _cfg(extra):
 def test_named_track_configs():
     c = _cfg({"track config": "streaming"})
     assert c.tracking.num_iterations == configs.STREAMING["num_iterations"]
-    assert c.tpu.track_regather == configs.STREAMING["regather_every"]
-    assert c.tpu.track_static is True
+    assert c.engine.track_regather == configs.STREAMING["regather_every"]
+    assert c.engine.track_static is True
 
     c = _cfg({"track config": "parity"})
     assert c.tracking.num_iterations == 12
-    assert c.tpu.track_regather == 4
-    assert c.tpu.track_static is True
+    assert c.engine.track_regather == 4
+    assert c.engine.track_static is True
 
     c = _cfg({"track config": "reference"})
     assert c.tracking.num_iterations == 50
-    assert c.tpu.track_regather == 1
-    assert c.tpu.track_static is False
+    assert c.engine.track_regather == 1
+    assert c.engine.track_static is False
     assert c.tracking.conv_threshold == pytest.approx(1e-3)
 
 

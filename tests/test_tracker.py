@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from psgradientsdf_tpu.core.grid import GridGeometry
-from psgradientsdf_tpu.core.volume import make_volume, fuse_frame
-from psgradientsdf_tpu.tracking.tracker import track_frame
-from psgradientsdf_tpu.utils import se3
+from psgradientsdf.core.grid import GridGeometry
+from psgradientsdf.core.volume import make_volume, fuse_frame
+from psgradientsdf.tracking.tracker import track_frame
+from psgradientsdf.utils import se3
 
 
 def build_fused_scene(dim=64, h=0.02):

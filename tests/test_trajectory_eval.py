@@ -7,13 +7,13 @@ here both live in-repo and are reachable from the CLI via --eval-ate.
 
 import numpy as np
 
-from psgradientsdf_tpu.io.trajectory import (
+from psgradientsdf.io.trajectory import (
     associate,
     ate_rmse,
     evaluate_ate,
     write_trajectory,
 )
-from psgradientsdf_tpu.utils.se3 import se3_exp
+from psgradientsdf.utils.se3 import se3_exp
 
 
 def _random_traj(n, seed):
